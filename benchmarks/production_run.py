@@ -6,16 +6,15 @@ the demonstrated floor, wall-clock per phase.  Matches
 import json
 import os
 import sys
+import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-
-from stabilized_navier_stokes_flow_fenicsx_tpu.apps.inlet_batch import (
+from stabilized_navier_stokes_flow_fenicsx.apps.inlet_batch import (
     run_trace_save)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.testimg import (
+from stabilized_navier_stokes_flow_fenicsx.utils.testimg import (
     make_annulus_image)
 
-img = "/tmp/bench_circle.png"
+img = os.path.join(tempfile.gettempdir(), "bench_circle.png")
 if not os.path.exists(img):
     make_annulus_image(img, "circle")
 

@@ -7,16 +7,16 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
     assembler_for_space)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import (
+from stabilized_navier_stokes_flow_fenicsx.fem.bc import (
     DirichletBC, bc_mask, bc_vector)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.elements import (
+from stabilized_navier_stokes_flow_fenicsx.fem.elements import (
     element, quadrature)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import make_space
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+from stabilized_navier_stokes_flow_fenicsx.fem.space import make_space
+from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
     unit_interval)
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.newton_host import (
+from stabilized_navier_stokes_flow_fenicsx.solve.newton_host import (
     newton_host_lu)
 
 

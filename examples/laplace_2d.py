@@ -7,16 +7,16 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
     assembler_for_space)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import (
+from stabilized_navier_stokes_flow_fenicsx.fem.bc import (
     DirichletBC, bc_mask, bc_vector, combine_bcs)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import make_space
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.poisson import (
+from stabilized_navier_stokes_flow_fenicsx.fem.space import make_space
+from stabilized_navier_stokes_flow_fenicsx.forms.poisson import (
     make_poisson_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
     unit_square_tri)
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
     solve_spd_cg)
 
 

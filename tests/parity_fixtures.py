@@ -11,9 +11,8 @@ rtol=atol=1e-8, NavierStokes/NavierStokesChannelFlow.py:281-283).
 
 test_parity.py then pins, per case:
   (a) regression — a fresh f64 solve matches the stored field, and
-  (b) the f32 + double-float-refinement path (the TPU configuration,
-      where f64 executes as f32) matches the stored f64 field to
-      L2 < 1e-6 — the parity bar on the platform that needs it.
+  (b) the f32 + double-float-refinement path (the default f32
+      configuration) matches the stored f64 field to L2 < 1e-6.
 
 Regenerate with:  python tests/parity_fixtures.py
 """
@@ -41,15 +40,15 @@ def duct_problem(dtype, n_cross, n_axial, length, Re):
     StokesFlow/DuctStokesFlow.py:39-142)."""
     import jax.numpy as jnp
 
-    from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+    from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
         assembler_for_mixed)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import (
+    from stabilized_navier_stokes_flow_fenicsx.fem.bc import (
         DirichletBC, bc_mask, bc_vector, combine_bcs)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import (
+    from stabilized_navier_stokes_flow_fenicsx.fem.space import (
         make_mixed_space)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+    from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
         duct_mesh)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.utils.exact import (
+    from stabilized_navier_stokes_flow_fenicsx.utils.exact import (
         square_duct_mean, square_duct_profile)
 
     mesh = duct_mesh(n_cross, n_axial, length=length)
@@ -81,13 +80,13 @@ def solve_duct_ns(dtype, refine: bool):
     """Returns the solution vector as f64 (hi+lo when refined)."""
     import jax.numpy as jnp
 
-    from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.df_assembly import (
+    from stabilized_navier_stokes_flow_fenicsx.assemble.df_assembly import (
         DFResidual)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes import (
+    from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes import (
         make_ns_sups_kernel)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes_df import (
+    from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes_df import (
         make_ns_sups_kernel_df, split64)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+    from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
         refine_newton_bcsr, solve_newton_bcsr)
 
     W, asm, mask, g, g64 = duct_problem(dtype, **{
@@ -118,9 +117,9 @@ def solve_duct_ns(dtype, refine: bool):
 
 
 def solve_cavity_ns(dtype):
-    from stabilized_navier_stokes_flow_fenicsx_tpu.apps.lid_driven import (
+    from stabilized_navier_stokes_flow_fenicsx.apps.lid_driven import (
         solve_lid_driven)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.config import SolverConfig
+    from stabilized_navier_stokes_flow_fenicsx.config import SolverConfig
 
     # the cavity Jacobian is ill-conditioned (~1e4 relative): two solves
     # both at residual 1e-8*n0 can differ by ~1e-5 in L2.  Converge both
@@ -136,7 +135,7 @@ def solve_cavity_ns(dtype):
 
 
 def channel_image(tmpdir="/tmp"):
-    from stabilized_navier_stokes_flow_fenicsx_tpu.utils.testimg import (
+    from stabilized_navier_stokes_flow_fenicsx.utils.testimg import (
         make_annulus_image)
 
     img = os.path.join(tmpdir, f"parity_{CHANNEL['shape']}.png")
@@ -146,9 +145,9 @@ def channel_image(tmpdir="/tmp"):
 
 
 def solve_channel_ns(dtype=None, case=CHANNEL):
-    """dtype=float32 exercises the TPU configuration (auto-refinement);
+    """dtype=float32 exercises the f32 configuration (auto-refinement);
     dtype=None/float64 under x64 generates the oracle field."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.flow.channel import (
+    from stabilized_navier_stokes_flow_fenicsx.flow.channel import (
         solve_ns_flow)
 
     sol = solve_ns_flow(

@@ -3,7 +3,7 @@ coarse resolution — P1-P1 + UGN stabilization is diffusive by design)."""
 
 import numpy as np
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.apps.lid_driven import (
+from stabilized_navier_stokes_flow_fenicsx.apps.lid_driven import (
     solve_lid_driven)
 
 

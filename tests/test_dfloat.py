@@ -2,9 +2,8 @@
 and the iterative-refinement Newton reaching SNES-grade 1e-8 tolerances.
 
 The f64 CPU build is the oracle: every df32 computation (components kept
-f32 explicitly) is pinned against the same computation in plain f64.  This
-is exactly the configuration the TPU cannot provide (its f64 executes as
-f32) — the df path is what closes that gap (VERDICT round-1 item 4;
+f32 explicitly) is pinned against the same computation in plain f64, the
+precision an f32 solve cannot reach alone (VERDICT round-1 item 4;
 reference SNES tolerances NavierStokes/NavierStokesChannelFlow.py:281-283).
 """
 
@@ -12,25 +11,25 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
     assembler_for_mixed)
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.df_assembly import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.df_assembly import (
     DFResidual)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import (
+from stabilized_navier_stokes_flow_fenicsx.fem.bc import (
     DirichletBC, bc_mask, bc_vector, combine_bcs)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import (
+from stabilized_navier_stokes_flow_fenicsx.fem.space import (
     make_mixed_space)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes import (
     make_ns_sups_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes_df import (
+from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes_df import (
     make_ns_sups_kernel_df, split64)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
     duct_mesh)
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
     refine_newton_bcsr, solve_newton_bcsr)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.dfloat import (
+from stabilized_navier_stokes_flow_fenicsx.utils.dfloat import (
     DF, df, df_add, df_div, df_einsum, df_mul, df_norm, df_rsqrt, df_sqrt)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.exact import (
+from stabilized_navier_stokes_flow_fenicsx.utils.exact import (
     square_duct_mean, square_duct_profile)
 
 
@@ -151,7 +150,7 @@ def test_refine_reaches_1e8_and_matches_f64_solution():
     assert bool(out64.converged)
     x64 = np.asarray(out64.x)
 
-    # --- f32 Newton (the TPU configuration)
+    # --- f32 Newton (the default f32 configuration)
     W32, asm32, mask64_, g64_ = _duct_problem(jnp.float32)
     m32 = jnp.asarray(mask64_, jnp.float32)
     g32 = jnp.asarray(g64_, jnp.float32)

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.elements import (
+from stabilized_navier_stokes_flow_fenicsx.fem.elements import (
     element, quadrature)
 
 

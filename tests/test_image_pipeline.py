@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.extrude import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.extrude import (
     extrude_channel, split_prisms)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.image import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.image import (
     find_contours, get_contours, load_image, optimize_contour, rdp)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.tri2d import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.tri2d import (
     points_in_polygon, triangulate_cross_section, triangulate_polygon)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.testimg import (
+from stabilized_navier_stokes_flow_fenicsx.utils.testimg import (
     make_annulus_image)
 
 
@@ -96,7 +96,7 @@ def test_split_prisms_conforming():
     tets = split_prisms(prisms)
     assert tets.shape == (6, 4)
     # every shared-face diagonal consistent: collect faces, none crossed
-    from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.core import (
+    from stabilized_navier_stokes_flow_fenicsx.mesh.core import (
         facets_of_cells)
     fv, _ = facets_of_cells("tetrahedron", tets.astype(np.int32))
     _, counts = np.unique(fv, axis=0, return_counts=True)

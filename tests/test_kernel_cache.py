@@ -15,23 +15,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
     assembler_for_mixed)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import (
+from stabilized_navier_stokes_flow_fenicsx.fem.bc import (
     DirichletBC, bc_mask, bc_vector, combine_bcs)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import (
+from stabilized_navier_stokes_flow_fenicsx.fem.space import (
     make_mixed_space)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes import (
     make_ns_sups_kernel, make_ns_ugn_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes_df import (
+from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes_df import (
     make_ns_sups_kernel_df)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.stokes import (
     make_stokes_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.stokes_df import (
+from stabilized_navier_stokes_flow_fenicsx.forms.stokes_df import (
     make_stokes_kernel_df)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
     duct_mesh)
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
     solve_newton_bcsr)
 
 

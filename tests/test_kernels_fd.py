@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes import (
     make_ns_sups_kernel, make_ns_ugn_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.poisson import (
+from stabilized_navier_stokes_flow_fenicsx.forms.poisson import (
     make_poisson_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.stokes import (
     make_stokes_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.stokes_th import (
+from stabilized_navier_stokes_flow_fenicsx.forms.stokes_th import (
     make_stokes_th_kernel)
 
 TET = np.array([[0.1, 0.0, 0.05], [1.1, 0.2, 0.0],

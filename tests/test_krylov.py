@@ -7,7 +7,7 @@ TFQMR is the reference's actual Newton Krylov
 import jax.numpy as jnp
 import numpy as np
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.krylov import (
+from stabilized_navier_stokes_flow_fenicsx.solve.krylov import (
     bicgstab, fgmres, tfqmr)
 
 

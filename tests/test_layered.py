@@ -5,21 +5,21 @@ import pytest
 
 import jax.numpy as jnp
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
     assembler_for_mixed)
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.layered import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.layered import (
     build_layered, layered_matvec, matrix_values_layered)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import (
+from stabilized_navier_stokes_flow_fenicsx.fem.space import (
     make_mixed_space)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes import (
     make_ns_sups_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.extrude import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.extrude import (
     extrude_channel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.image import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.image import (
     get_contours, load_image, optimize_contour)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.tri2d import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.tri2d import (
     triangulate_cross_section)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.testimg import (
+from stabilized_navier_stokes_flow_fenicsx.utils.testimg import (
     make_annulus_image)
 
 
@@ -60,9 +60,9 @@ def test_layered_matvec_matches_bcsr(channel):
 
 def test_layered_channel_solution_matches(channel, tmp_path):
     """Full pipeline: layered and BCSR paths give the same fields."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.flow.channel import (
+    from stabilized_navier_stokes_flow_fenicsx.flow.channel import (
         solve_ns_flow)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.utils.testimg import (
+    from stabilized_navier_stokes_flow_fenicsx.utils.testimg import (
         make_annulus_image)
 
     img = str(tmp_path / "c.png")
@@ -79,9 +79,9 @@ def test_layered_channel_solution_matches(channel, tmp_path):
 
 
 def test_stepped_newton_matches_monolithic(channel):
-    """solve_newton_layered_stepped (per-dispatch, the TPU-safe shape)
+    """solve_newton_layered_stepped (one program per Newton step)
     reaches the same solution as the one-jit Newton."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+    from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
         solve_newton_layered, solve_newton_layered_stepped)
     import jax.numpy as jnp
 
@@ -112,7 +112,7 @@ def test_stepped_newton_matches_monolithic(channel):
 def test_newton_tfqmr_matches_fgmres(channel):
     """ksp="tfqmr" (the reference's SNES KSP, NavierStokesChannelFlow.py:
     198-202) reaches the same Newton solution as the FGMRES default."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+    from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
         solve_newton_layered)
 
     mesh = channel
@@ -138,39 +138,12 @@ def test_newton_tfqmr_matches_fgmres(channel):
     assert rel < 1e-6, rel
 
 
-def test_ell_matvec_matches_layered(channel, monkeypatch):
-    """NS_TPU_ELL_SPMV wiring (VERDICT round-3 item 9): the scatter-free
-    XLA-ELL operator closure must match the segment-sum matvec exactly
-    on the image-derived channel pattern."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.layered import (
-        make_layered_op)
-
-    mesh = channel
-    n2d, n_planes, _ = mesh.layered
-    W = make_mixed_space(mesh, 1, 1)
-    monkeypatch.setenv("NS_TPU_ELL_SPMV", "1")
-    lp = build_layered(W, n2d, n_planes)
-    assert lp.arrays.ell_perm is not None
-    kern = make_ns_sups_kernel("tetrahedron", nu=0.1)
-    rng = np.random.default_rng(1)
-    w = jnp.asarray(rng.normal(size=W.ndofs) * 0.1)
-    x = jnp.asarray(rng.normal(size=W.ndofs))
-    mask = jnp.asarray((rng.random(W.ndofs) > 0.1).astype(x.dtype))
-    vals = matrix_values_layered(kern, lp.E, n_planes, lp.bs, lp.arrays, w)
-
-    y_ell = np.asarray(make_layered_op(
-        lp.arrays, n2d, n_planes, vals, mask)(x))
-    plain = lp.arrays._replace(ell_perm=None, ell_mask=None, ell_cols=None)
-    y_ref = np.asarray(make_layered_op(plain, n2d, n_planes, vals, mask)(x))
-    np.testing.assert_allclose(y_ell, y_ref, rtol=0, atol=1e-11)
-
-
 def test_structured_soa_residual_and_path(channel):
     """SoA structured residual == generic segment-sum residual, and the
     build records the SoA path (round 4, assemble/structured.py)."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+    from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
         AsmArrays, residual_of)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.layered import (
+    from stabilized_navier_stokes_flow_fenicsx.assemble.layered import (
         residual_layered)
 
     mesh = channel
@@ -206,7 +179,7 @@ def test_structured_soa_vs_aos_jacobian(channel, monkeypatch):
     w = jnp.asarray(rng.normal(size=W.ndofs) * 0.1)
     V_soa = matrix_values_layered(kern, lp.E, n_planes, lp.bs,
                                   lp.arrays, w)
-    monkeypatch.setitem(os.environ, "NS_TPU_NO_SOA", "1")
+    monkeypatch.setitem(os.environ, "NS_NO_SOA", "1")
     lp_aos = build_layered(W, n2d, n_planes)
     assert lp_aos.asm_path == "structured"
     V_aos = matrix_values_layered(kern, lp_aos.E, n_planes, lp_aos.bs,

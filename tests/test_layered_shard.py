@@ -10,21 +10,21 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.layered import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.layered import (
     build_layered)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import (
+from stabilized_navier_stokes_flow_fenicsx.fem.bc import (
     DirichletBC, bc_mask, bc_vector, combine_bcs)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import (
+from stabilized_navier_stokes_flow_fenicsx.fem.space import (
     make_mixed_space)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes import (
     make_ns_sups_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
     duct_mesh)
-from stabilized_navier_stokes_flow_fenicsx_tpu.parallel.layered_shard import (
+from stabilized_navier_stokes_flow_fenicsx.parallel.layered_shard import (
     pad_mask_g, padded_planes, sharded_newton_layered)
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
     solve_newton_layered)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.exact import (
+from stabilized_navier_stokes_flow_fenicsx.utils.exact import (
     square_duct_mean, square_duct_profile)
 
 
@@ -91,7 +91,7 @@ def test_plane_sharded_mg_matches_single_device():
     block-Jacobi only'): the aggregation V-cycle with Chebyshev-Jacobi
     smoothing runs under the SPMD partitioner and matches the
     single-device mg_cheby solve."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.solve.mg import (
+    from stabilized_navier_stokes_flow_fenicsx.solve.mg import (
         build_mg_hierarchy)
 
     mesh, W, mask, g, kern = _duct_layered()
@@ -133,9 +133,9 @@ def test_sharded_assembly_divides_flops():
     fraction of the unsharded program (measured 0.20 at this size —
     1/8 plus the one-plane halo and slab count-padding overhead, which
     shrink further with problem size)."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.layered import (
+    from stabilized_navier_stokes_flow_fenicsx.assemble.layered import (
         matrix_values_layered)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.parallel.layered_shard import (
+    from stabilized_navier_stokes_flow_fenicsx.parallel.layered_shard import (
         make_slab_assembly, shard_layered_inputs)
 
     mesh, W, mask, g, kern = _duct_layered(n_cross=6, n_axial=17)
@@ -172,7 +172,7 @@ def test_slab_partition_divides_work():
     """VERDICT round-2 item 4 acceptance: the slab partition gives every
     device ~nc/D cells (work division by construction, not replication),
     with slab-local ids that stay inside the (Lq+1)-plane halo block."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.parallel.layered_shard import (
+    from stabilized_navier_stokes_flow_fenicsx.parallel.layered_shard import (
         build_slab_layered)
 
     # n_axial=23 -> Lp=24 = 8*3 exactly: no padded planes, so the
@@ -202,17 +202,17 @@ def test_slab_partition_divides_work():
 
 def _channel_layered(lc=0.2, Re=10.0):
     """Image-derived channel problem (the production geometry) for the
-    channel-shape sharding checks — mirrors __graft_entry__'s dryrun
-    setup (splitter geometry, unused-node identity rows, inlet-profile
-    BCs)."""
+    channel-shape sharding checks — mirrors chip_smoke.py's
+    channel_problem (splitter geometry, unused-node identity rows,
+    inlet-profile BCs)."""
     import os
 
-    from stabilized_navier_stokes_flow_fenicsx_tpu.config import DEFAULT
-    from stabilized_navier_stokes_flow_fenicsx_tpu.flow.channel import (
+    from stabilized_navier_stokes_flow_fenicsx.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx.flow.channel import (
         channel_bcs, generate_channel_mesh)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.flow.inlet import (
+    from stabilized_navier_stokes_flow_fenicsx.flow.inlet import (
         solve_inlet_profiles)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.utils.testimg import (
+    from stabilized_navier_stokes_flow_fenicsx.utils.testimg import (
         make_annulus_image)
 
     img = "/tmp/shardtest_circle.png"
@@ -240,9 +240,9 @@ def test_sharded_assembly_flop_division_sweep_channel():
     Jacobian assembly at the CHANNEL shape divide by the device count
     across D in {2, 4, 8} (1/D plus the one-plane halo + plane-padding
     overhead, which shrinks with problem size)."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.layered import (
+    from stabilized_navier_stokes_flow_fenicsx.assemble.layered import (
         matrix_values_layered)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.parallel.layered_shard import (
+    from stabilized_navier_stokes_flow_fenicsx.parallel.layered_shard import (
         make_slab_assembly, shard_layered_inputs)
 
     mesh, W, mask, g, kern = _channel_layered()

@@ -1,8 +1,8 @@
 import numpy as np
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.core import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.core import (
     boundary_facets, mark_boundary_facets)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
     box_tet, duct_mesh, unit_square_tri)
 
 
@@ -20,7 +20,7 @@ def test_box_tet_volume_and_conformity():
     np.testing.assert_allclose(m.cell_volumes().sum(), 4.0, rtol=1e-13)
     assert (m.cell_volumes() > 0).all()
     # conforming: every interior facet shared by exactly 2 cells
-    from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.core import (
+    from stabilized_navier_stokes_flow_fenicsx.mesh.core import (
         facets_of_cells)
     fv, _ = facets_of_cells(m.cell, m.cells)
     _, counts = np.unique(fv, axis=0, return_counts=True)
@@ -46,7 +46,7 @@ def test_sizefield_no_degenerate_boundary_edges():
     the chain endpoint (_walk_chain's sliver guard was dead code) — the
     zero-length boundary edge made Delaunay edge recovery loop forever.
     Reproducer: the dfg2d sizefield at wake_factor=0.5."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.apps.dfg2d import (
+    from stabilized_navier_stokes_flow_fenicsx.apps.dfg2d import (
         dfg2d_mesh)
 
     m = dfg2d_mesh(0.5, 0.5, wake_factor=0.5, near_growth=0.25)

@@ -11,16 +11,16 @@ import os
 import numpy as np
 import pytest
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.config import DEFAULT
-from stabilized_navier_stokes_flow_fenicsx_tpu.flow.channel import (
+from stabilized_navier_stokes_flow_fenicsx.config import DEFAULT
+from stabilized_navier_stokes_flow_fenicsx.flow.channel import (
     _setup_layered, generate_channel_mesh)
-from stabilized_navier_stokes_flow_fenicsx_tpu.flow.inlet import (
+from stabilized_navier_stokes_flow_fenicsx.flow.inlet import (
     solve_inlet_profiles)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.stokes import (
     make_stokes_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
     solve_linear_layered)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.testimg import (
+from stabilized_navier_stokes_flow_fenicsx.utils.testimg import (
     make_annulus_image)
 
 
@@ -113,11 +113,11 @@ def test_line_cr_matches_thomas(channel_image):
     the same block-tridiagonal columns (solve/precond.py)."""
     import jax.numpy as jnp
 
-    from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.layered import (
+    from stabilized_navier_stokes_flow_fenicsx.assemble.layered import (
         matrix_values_layered)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.forms.stokes import (
+    from stabilized_navier_stokes_flow_fenicsx.forms.stokes import (
         make_stokes_kernel)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.solve.precond import (
+    from stabilized_navier_stokes_flow_fenicsx.solve.precond import (
         line_cr_layered, line_jacobi_layered)
 
     inlet1, inlet2 = solve_inlet_profiles(channel_image, 0.5, DEFAULT)
@@ -158,7 +158,7 @@ def test_parse_mg_pc():
     dofs while degree 6 converges (see solve/mg.py make_mg_pc)."""
     import jax.numpy as jnp
 
-    from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+    from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
         parse_mg_pc)
 
     assert parse_mg_pc("mg") == ("plane_gs", 6, "v", None)

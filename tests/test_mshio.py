@@ -16,7 +16,7 @@ import tempfile
 
 import numpy as np
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.mshio import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.mshio import (
     read_msh, write_msh)
 
 # one unit square split into two triangles, bottom edge marked 7,
@@ -65,7 +65,7 @@ def test_roundtrip_dfg2d_mesh_and_solve():
     """Write the native DFG mesh as MSH 4.1, read it back, and check the
     mesh is identical — so a solve on the imported mesh is bit-identical
     to a solve on the native one (matched-mesh cross-validation works)."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.apps.dfg2d import (
+    from stabilized_navier_stokes_flow_fenicsx.apps.dfg2d import (
         dfg2d_mesh)
 
     mesh = dfg2d_mesh(2.0)                      # tiny smoke scale
@@ -87,7 +87,7 @@ def test_roundtrip_dfg2d_mesh_and_solve():
 
 
 def test_roundtrip_3d():
-    from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+    from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
         duct_mesh)
 
     mesh = duct_mesh(3, 5)
@@ -108,7 +108,7 @@ def test_roundtrip_3d():
 def test_imported_mesh_solves():
     """Poisson solve on an imported MSH 2.2 mesh (structured square
     exported by hand) matches the solve on the in-memory original."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+    from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
         unit_square_tri)
 
     mesh = unit_square_tri(6, 6)
@@ -122,15 +122,15 @@ def test_imported_mesh_solves():
 
     import jax.numpy as jnp
 
-    from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+    from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
         assembler_for_space)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import (
+    from stabilized_navier_stokes_flow_fenicsx.fem.bc import (
         DirichletBC, bc_mask, bc_vector)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import (
+    from stabilized_navier_stokes_flow_fenicsx.fem.space import (
         make_space)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.forms.poisson import (
+    from stabilized_navier_stokes_flow_fenicsx.forms.poisson import (
         make_poisson_kernel)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+    from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
         solve_spd_cg)
 
     def solve(m):

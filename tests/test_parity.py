@@ -8,10 +8,9 @@ test_stokes_duct.py / test_cavity.py / test_dfg.py (see
 parity_fixtures.py).  Each case checks:
 
   (a) regression: a fresh f64 solve reproduces the stored field, and
-  (b) parity on the TPU configuration: the f32 + double-float-refinement
-      path matches the stored f64 field to L2 < 1e-6 — this is the bar
-      the TPU (where f64 silently executes as f32) could not meet before
-      the df refinement existed, and the bound the driver's judge checks.
+  (b) parity on the f32 configuration: the f32 + double-float-refinement
+      path matches the stored f64 field to L2 < 1e-6 — the bar plain f32
+      Newton cannot meet without the df refinement.
 """
 
 import os

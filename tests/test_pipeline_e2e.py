@@ -9,17 +9,17 @@ import os
 import numpy as np
 import pytest
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.config import (
+from stabilized_navier_stokes_flow_fenicsx.config import (
     Config, SolverConfig, TraceConfig)
-from stabilized_navier_stokes_flow_fenicsx_tpu.flow.channel import (
+from stabilized_navier_stokes_flow_fenicsx.flow.channel import (
     solve_ns_flow)
-from stabilized_navier_stokes_flow_fenicsx_tpu.flow.inlet import (
+from stabilized_navier_stokes_flow_fenicsx.flow.inlet import (
     _p1_integral, solve_inlet_profiles)
-from stabilized_navier_stokes_flow_fenicsx_tpu.io.xdmf import (
+from stabilized_navier_stokes_flow_fenicsx.io.xdmf import (
     read_xdmf_function, write_xdmf_function)
-from stabilized_navier_stokes_flow_fenicsx_tpu.trace.pipeline import (
+from stabilized_navier_stokes_flow_fenicsx.trace.pipeline import (
     for_and_rev_streamtrace)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.testimg import (
+from stabilized_navier_stokes_flow_fenicsx.utils.testimg import (
     make_annulus_image)
 
 
@@ -99,7 +99,7 @@ def test_streamtrace_outlet(solution, img):
 
 
 def test_xdmf_time_series_roundtrip(solution, tmp_path):
-    from stabilized_navier_stokes_flow_fenicsx_tpu.io.xdmf import (
+    from stabilized_navier_stokes_flow_fenicsx.io.xdmf import (
         XdmfTimeSeries, read_xdmf_series)
 
     sol, _ = solution
@@ -112,7 +112,7 @@ def test_xdmf_time_series_roundtrip(solution, tmp_path):
     np.testing.assert_allclose(times, [0.0, 0.5])
     np.testing.assert_allclose(vals[1], 2.0 * np.asarray(sol.u))
     # the series file still serves as a step-0 checkpoint
-    from stabilized_navier_stokes_flow_fenicsx_tpu.io.xdmf import (
+    from stabilized_navier_stokes_flow_fenicsx.io.xdmf import (
         read_xdmf_function)
     _, v0 = read_xdmf_function(base, "Velocity")
     np.testing.assert_allclose(v0, np.asarray(sol.u))

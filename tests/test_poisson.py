@@ -3,18 +3,18 @@
 import jax.numpy as jnp
 import numpy as np
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
     assembler_for_space)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import DirichletBC
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import make_space
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.poisson import (
+from stabilized_navier_stokes_flow_fenicsx.fem.bc import DirichletBC
+from stabilized_navier_stokes_flow_fenicsx.fem.space import make_space
+from stabilized_navier_stokes_flow_fenicsx.forms.poisson import (
     make_poisson_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.core import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.core import (
     boundary_facets)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
     unit_square_tri)
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.krylov import cg
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.precond import (
+from stabilized_navier_stokes_flow_fenicsx.solve.krylov import cg
+from stabilized_navier_stokes_flow_fenicsx.solve.precond import (
     scalar_jacobi)
 
 

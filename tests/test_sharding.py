@@ -5,23 +5,23 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.apps.lid_driven import (
+from stabilized_navier_stokes_flow_fenicsx.apps.lid_driven import (
     cavity_bcs, solve_lid_driven)
-from stabilized_navier_stokes_flow_fenicsx_tpu.assemble.assembly import (
+from stabilized_navier_stokes_flow_fenicsx.assemble.assembly import (
     assembler_for_mixed)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import (
+from stabilized_navier_stokes_flow_fenicsx.fem.bc import (
     bc_mask, bc_vector)
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import (
+from stabilized_navier_stokes_flow_fenicsx.fem.space import (
     make_mixed_space)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes import (
     make_ns_ugn_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.stokes import (
     make_stokes_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
     unit_square_tri)
-from stabilized_navier_stokes_flow_fenicsx_tpu.parallel.shard import (
+from stabilized_navier_stokes_flow_fenicsx.parallel.shard import (
     make_sharded_problem, sharded_newton)
-from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
     solve_linear_bcsr)
 
 
@@ -44,7 +44,7 @@ def test_sharded_newton_matches_single_device():
     nsk = make_ns_ugn_kernel("triangle", nu=1 / Re)
 
     # single-device reference
-    from stabilized_navier_stokes_flow_fenicsx_tpu.solve.driver import (
+    from stabilized_navier_stokes_flow_fenicsx.solve.driver import (
         solve_newton_bcsr)
     ref = solve_newton_bcsr(nsk, asm.ndofs, pat.nnzb, pat.bs, pat.n_rows,
                             asm.arrays, mask, g, sres.x)
@@ -61,7 +61,7 @@ def test_sharded_newton_matches_single_device():
     assert err < 1e-8
 
     # ---- GSPMD row-partitioned variant (dof vectors NOT replicated) ----
-    from stabilized_navier_stokes_flow_fenicsx_tpu.parallel.shard import (
+    from stabilized_navier_stokes_flow_fenicsx.parallel.shard import (
         spmd_newton_bcsr)
 
     dof_mesh = Mesh(np.array(jax.devices()), ("dofs",))

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes import (
+from stabilized_navier_stokes_flow_fenicsx.forms.navier_stokes import (
     make_ns_sups_kernel, make_ns_ugn_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu.forms.soa import (
+from stabilized_navier_stokes_flow_fenicsx.forms.soa import (
     make_sups_soa, make_ugn_soa)
 
 

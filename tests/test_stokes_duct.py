@@ -7,9 +7,9 @@ output', reference README.md:44-56) made quantitative.
 import numpy as np
 import pytest
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.apps.duct_stokes import (
+from stabilized_navier_stokes_flow_fenicsx.apps.duct_stokes import (
     solve_duct)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.exact import (
+from stabilized_navier_stokes_flow_fenicsx.utils.exact import (
     square_duct_mean, square_duct_profile)
 
 

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.apps.duct_stokes_th import (
+from stabilized_navier_stokes_flow_fenicsx.apps.duct_stokes_th import (
     solve_duct_th)
-from stabilized_navier_stokes_flow_fenicsx_tpu.utils.exact import (
+from stabilized_navier_stokes_flow_fenicsx.utils.exact import (
     square_duct_mean, square_duct_profile)
 
 
@@ -49,7 +49,7 @@ def test_minres_symmetric_indefinite():
     point, with an SPD block-diagonal preconditioner."""
     import jax.numpy as jnp
 
-    from stabilized_navier_stokes_flow_fenicsx_tpu.solve.krylov import minres
+    from stabilized_navier_stokes_flow_fenicsx.solve.krylov import minres
 
     rng = np.random.default_rng(7)
     n, m = 24, 8

@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from stabilized_navier_stokes_flow_fenicsx_tpu.fem.interpolate import (
+from stabilized_navier_stokes_flow_fenicsx.fem.interpolate import (
     build_locator, device_locator, interpolate_p1_np, locate_np)
-from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.structured import (
+from stabilized_navier_stokes_flow_fenicsx.mesh.structured import (
     box_tet, duct_mesh, unit_square_tri)
-from stabilized_navier_stokes_flow_fenicsx_tpu.trace.alpha_shape import (
+from stabilized_navier_stokes_flow_fenicsx.trace.alpha_shape import (
     alpha_shape_polygon, expand_bbox)
-from stabilized_navier_stokes_flow_fenicsx_tpu.trace.streamtrace import (
+from stabilized_navier_stokes_flow_fenicsx.trace.streamtrace import (
     TraceConfigDevice, trace_particles)
 
 
@@ -95,13 +95,13 @@ def test_trace_speed_event_stops():
 
 
 def _small_channel(tmp_path, lc=0.12):
-    from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.extrude import (
+    from stabilized_navier_stokes_flow_fenicsx.mesh.extrude import (
         extrude_channel)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.image import (
+    from stabilized_navier_stokes_flow_fenicsx.mesh.image import (
         get_contours, load_image, optimize_contour)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.mesh.tri2d import (
+    from stabilized_navier_stokes_flow_fenicsx.mesh.tri2d import (
         triangulate_cross_section)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.utils.testimg import (
+    from stabilized_navier_stokes_flow_fenicsx.utils.testimg import (
         make_annulus_image)
 
     img = str(tmp_path / "c.png")
@@ -120,7 +120,7 @@ def test_layered_locator_matches_general(tmp_path):
     grid locator: same containment and identical interpolated values."""
     import jax
 
-    from stabilized_navier_stokes_flow_fenicsx_tpu.fem.interpolate import (
+    from stabilized_navier_stokes_flow_fenicsx.fem.interpolate import (
         build_layered_locator, locate_device, locate_device_layered)
 
     mesh = _small_channel(tmp_path)
@@ -161,9 +161,9 @@ def test_layered_locator_matches_general(tmp_path):
 def test_layered_locator_survives_xdmf_roundtrip(tmp_path):
     """Extrusion recovery works on a mesh re-read from XDMF — the
     product trace path (InletBatchScript re-reads from disk)."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.fem.interpolate import (
+    from stabilized_navier_stokes_flow_fenicsx.fem.interpolate import (
         LayeredDeviceLocator, build_trace_locator)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.io.xdmf import (
+    from stabilized_navier_stokes_flow_fenicsx.io.xdmf import (
         read_xdmf_function, write_xdmf_function)
 
     mesh = _small_channel(tmp_path)
